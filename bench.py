@@ -1,20 +1,18 @@
 """Headline benchmark: PMMH aggregate throughput at 4096 particles (SIR).
 
-Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"}.
+Prints ONE JSON line: {"metric", "value", "unit", "device", ...}.
 
 Workload (BASELINE.json): PMMH on SIR with under-reported observations,
 4096 particles per chain, T=15 observations, tau-leap propagation — the
 reference's flagship configuration (reference tests/test_pmcmc_underreported.py
 with n_particles scaled up).  Aggregate iters/s counts every parallel chain's
-iteration; chains are vmapped on the chip (the multi-chip path shards the
-chains axis, measured separately via scaling tests).
+iteration; chains are vmapped on the card.  (The reference CPU
+implementation manages ~0.02 iters/s at 100 particles:
+tests/test_particles_subgroups.py:79-82.)
 
-Baseline normalization: BASELINE.json's north-star target is >= 10,000
-aggregate iters/s on a v5e-16 (16 chips), i.e. 625 iters/s per chip.
-``vs_baseline`` is value / 625 measured on the single available chip — 1.0
-means on track for the pod-level target, assuming the measured >= 80%
-chain-parallel scaling efficiency.  (The reference CPU implementation manages
-~0.02 iters/s at 100 particles: tests/test_particles_subgroups.py:79-82.)
+It measures the GPU.  With any other default backend it exits non-zero,
+unless the caller set ``JAX_PLATFORMS=cpu`` itself: that run is a
+rehearsal, and its numbers are labelled with the ``cpu`` platform.
 """
 import json
 import os
@@ -24,6 +22,24 @@ import time
 import numpy as np
 
 
+def _device_info():
+    """The device the numbers belong to, or None when this is not a GPU run
+    and not a CPU rehearsal the caller asked for."""
+    import jax
+
+    dev = jax.devices()[0]
+    info = {"platform": dev.platform, "kind": dev.device_kind,
+            "count": len(jax.devices())}
+    if dev.platform == "gpu":
+        from chip_smoke import gpu_name_and_power_limit
+
+        info["name_power_limit"] = gpu_name_and_power_limit()
+        return info
+    if os.environ.get("JAX_PLATFORMS") == "cpu" and dev.platform == "cpu":
+        return info
+    return None
+
+
 def main():
     import jax
     import jax.numpy as jnp
@@ -31,51 +47,43 @@ def main():
     import epitpu
 
     epitpu.enable_compilation_cache()
+    device = _device_info()
+    if device is None:
+        print("bench.py measures a GPU; set JAX_PLATFORMS=cpu for a CPU "
+              "rehearsal", file=sys.stderr)
+        return 2
+    from epitpu.cli.configs import ExperimentConfig
+    from epitpu.cli.run import generate_dataset
     from epitpu.mcmc import particle_mcmc_chains
     from epitpu.models import sir_model
     from epitpu.observe import get_observation_model
-    from epitpu.ode import sir_simulate_discrete
 
     n_particles = 4096
-    # 32 vmapped chains balances the round-3 measurements at the
-    # resample_every=4 production schedule (2-seed, on-chip):
-    #   chains=16: 2413 iters/s, ESS/s 91      chains=32: 2469, 87
-    #   chains=64: 2022, 54                    chains=128: 2737, 73
-    # (128 maximizes raw iters/s; 32 keeps ESS/s within noise of the best
-    # while adding throughput over 16.)  "fast_rbg" draws the tau-leap
-    # randomness from the TPU hardware RNG instead of threefry — same
-    # trajectory law (tests/test_sim.py::test_fast_rbg_sampler_matches_
-    # exact_moments).
+    # 32 vmapped chains and the shapes below were chosen on an earlier
+    # accelerator and have not been measured on the GPU.  "fast_rbg" draws
+    # the tau-leap randomness through XLA's RngBitGenerator instead of
+    # threefry — same trajectory law
+    # (tests/test_sim.py::test_fast_rbg_sampler_matches_exact_moments).
     n_chains = int(os.environ.get("BENCH_CHAINS", "32"))
     n_iters = int(os.environ.get("BENCH_ITERS", "128"))
-    # steps_per_unit=20 is EVIDENCED, not assumed (SUBSTEPS.json, round 4):
-    # it is the smallest substep count whose PF log-likelihood matches the
-    # substeps=80 anchor (bias -0.003 log units, z=-0.6); 10 substeps would
-    # be ~1.5x faster but biases E[logZ] by -0.66 (z=-105) and tilts the
-    # gamma posterior ~0.8 sd — not a free win.
+    # steps_per_unit=20 is an accuracy finding (it holds on any device):
+    # the smallest substep count whose PF log-likelihood matched the
+    # substeps=80 anchor (bias -0.003 log units); 10 substeps biased E[logZ]
+    # by -0.66 and tilted the gamma posterior ~0.8 sd.
     steps_per_unit = int(os.environ.get("BENCH_STEPS_PER_UNIT", "20"))
     sampler = os.environ.get("BENCH_SAMPLER", "fast_rbg")
     resampling = os.environ.get("BENCH_RESAMPLING", "systematic")
     resample_threshold = float(os.environ.get("BENCH_RESAMPLE_THRESHOLD", "1.0"))
     # resample_every=4 is the production configuration: resampling every
     # 4th observation step with carried weights is an exactly-valid
-    # pseudo-marginal PMMH (unbiased logZ estimator -> same posterior).
-    # Multi-seed on-chip sweep of the schedule depth (3 seeds each):
-    #   every=1: 1336 iters/s, ESS/s 70.6      (reference semantics)
-    #   every=2: 1764 iters/s, ESS/s 77.8+-24
-    #   every=4: 2413 iters/s, ESS/s 91.3+-34
-    #   every=7: 2645 iters/s, ESS/s 88.9+-30
-    # ESS is flat within noise while the N^2 resampling work (49% of the
-    # always-resample iteration, PROFILE_insitu.json) drops ~4x.  The
-    # reference-semantics number is reported alongside as
-    # ref_iters_per_s / ref_ess_per_s.
+    # pseudo-marginal PMMH (unbiased logZ estimator -> same posterior) that
+    # skips the N^2 resampling work on the other steps.  Its speed on the
+    # GPU has not been measured.  The reference-semantics number is
+    # reported alongside as ref_iters_per_s / ref_ess_per_s.
     resample_every = int(os.environ.get("BENCH_RESAMPLE_EVERY", "4"))
 
-    t = np.linspace(0, 14, 100)
-    df = sir_simulate_discrete((4800.0, 20.0, 0.0), t, 2.0, 1.0)
-    latent = df[["susceptible", "infected", "removed"]].to_numpy()
-    rng = np.random.default_rng(42)
-    y = jnp.asarray(rng.binomial(np.round(latent).astype(int), 0.1).astype(np.float32))
+    y, _ = generate_dataset(ExperimentConfig())  # the flagship data
+    y = jnp.asarray(y)
 
     model = sir_model()
     obs = get_observation_model("binomial")
@@ -117,7 +125,6 @@ def main():
 
     total_iters = n_chains * n_iters
     iters_per_s = total_iters / elapsed
-    per_chip_target = 10000.0 / 16.0
 
     # Secondary metric (BASELINE.md): ESS/s.  Geyer multi-chain ESS per theta
     # component over the timed chains (no burn-in: each chain starts at an
@@ -132,20 +139,14 @@ def main():
     ess_per_s = ess_min / elapsed
     ess_min_rank = float(np.min(ess_rank(thetas)))
 
-    # TUNED ESS/s (BASELINE.md secondary metric): the statistically-tuned
-    # configuration — proposal covariance pooled across ALL vmapped chains
-    # via collectives (Welford, reference pmcmc.py:327-328 upgraded with
-    # cross-chain pooling) engaging after 16 iterations, scale h=0.6 on the
-    # adapted covariance.  h comes from the LONG-RUN study (ESS_STUDY.json,
-    # round 4: 1024-iteration chains, 3 seeds/arm, 8 arms): ESS/s peaks at
-    # h=0.6 with 240 +/- 11 ESS/s at acceptance 0.38 (h=1.0: 230 +/- 24;
-    # h=0.15, round 3's short-run pick: 86 +/- 7).  The seed bands are far
-    # narrower than the tuned-vs-fixed gap (fixed h=0.05: 76 +/- 3), which
-    # round 3's 128-iteration measurements could not claim.  The tuned
-    # section runs its own LONGER window (default 512 iters, burn 64):
-    # at 128 iters the pooled covariance has not converged and the tuned
-    # arm under-reports badly (62 ESS/s at acceptance 0.155 measured) —
-    # a short-window artifact, not a property of the configuration.
+    # TUNED ESS/s (BASELINE.md secondary metric): the proposal covariance
+    # pooled across ALL vmapped chains via collectives (Welford, reference
+    # pmcmc.py:327-328 upgraded with cross-chain pooling) engaging after 16
+    # iterations, scale h=0.6 on the adapted covariance.  h=0.6 came from
+    # a long-run study on an earlier accelerator (ESS/s is a property of
+    # the chains, but per second it is not measured on the GPU).  The
+    # section runs its own longer window (default 512 iters, burn 64): at
+    # 128 iters the pooled covariance has not converged.
     tuned_kw = dict(adaptive=True, h=0.6, adapt_start=16, pooled=True)
     n_iters_tuned = int(os.environ.get("BENCH_TUNED_ITERS", "512"))
     if os.environ.get("BENCH_SKIP_TUNED"):
@@ -171,29 +172,19 @@ def main():
             ),
         }
 
-    # EFFICIENT-ESS configuration (ESS_STUDY.json frontier): the BASELINE
-    # secondary metric (ESS/s) names no particle count, and the pseudo-
-    # marginal sampler is EXACT at any N, so the frontier question is
-    # purely mixing-vs-throughput.  Round 4's particle sweep (fixed 32
-    # chains, latency-floored) stopped at 512x128 = 8,069 ESS/s; round 5's
-    # JOINT (chains x particles) sweep found the chip compute-bound at
-    # production chain counts with the stable optimum at 2048 chains x 16
-    # particles: 34,657 +/- 1,103 ESS/s, ~537k aggregate iters/s
-    # (sd(logZ)=0.71, acceptance 0.26; N=8 and chains >= 3072 go
-    # seed-unstable via outlier-init chains).  This configuration is
-    # PRODUCTIZED as the CLI `production` preset, and this section runs
-    # exactly that preset's sampler settings: pooled adaptation at h=0.6
-    # with store_trajectories=False (theta-only fast path — no filter
-    # history, no path sampling, no trajectory stacking).  The Robbins-
-    # Monro target-acceptance controller is deliberately NOT part of this
-    # configuration: at 512 chains it raises realized acceptance 0.31 ->
-    # 0.42 (smaller steps), and a rare badly-initialized outlier chain
-    # then cannot random-walk home within the window, collapsing
-    # min-component pooled ESS (measured 23,104 -> 797 on one seed;
-    # ESS_STUDY.json chain_scaling_at_eff note).
+    # EFFICIENT-ESS configuration: the CLI `production` preset's sampler
+    # settings (2048 chains x 16 particles, pooled adaptation at h=0.6,
+    # store_trajectories=False: no filter history, no path sampling, no
+    # trajectory stacking).  The pseudo-marginal sampler is exact at any
+    # N, so the particle count trades mixing against throughput; this
+    # shape was the stable optimum of a chains x particles sweep on an
+    # earlier accelerator and has not been re-swept on the GPU.  No
+    # target-acceptance controller: at large chain counts it shrinks the
+    # steps, and a rare badly-initialized chain then cannot walk home
+    # within the window, collapsing min-component pooled ESS.
     # eff_ess_per_s is the PRIMARY ESS/s metric (duplicated as ess_per_s);
     # the 4096-particle baseline-shape number stays alongside as
-    # baseline_ess_per_s for cross-round continuity.
+    # baseline_ess_per_s.
     n_eff_particles = int(os.environ.get("BENCH_EFF_PARTICLES", "16"))
     n_eff_chains = int(os.environ.get("BENCH_EFF_CHAINS", "2048"))
     if os.environ.get("BENCH_SKIP_EFF"):
@@ -213,9 +204,8 @@ def main():
 
         r4 = run_eff(jax.random.PRNGKey(0), n_iters_tuned)
         np.asarray(r4.thetas)  # warmup/compile
-        # two timed reps, keep the faster wall: single-rep eff walls swing
-        # ~15% with host scheduling noise on this shared machine, and the
-        # min is the standard least-interference estimate
+        # two timed reps, keep the faster wall (the least-interference
+        # estimate under host scheduling noise)
         best = None
         for rep_key in (1, 2):
             t3 = time.time()
@@ -230,9 +220,7 @@ def main():
         ess4_rank = float(np.min(ess_rank(th4[:, burn4:, :])))
         eff = {
             "eff_ess_per_s": round(ess4 / elapsed4, 2),
-            # rank-normalized split variant alongside (headline min-ESS
-            # estimator per the round-4 judge; classic kept for
-            # cross-round continuity)
+            # rank-normalized split variant alongside the classic one
             "eff_ess_rank_per_s": round(ess4_rank / elapsed4, 2),
             "eff_iters_per_s": round(
                 n_eff_chains * n_iters_tuned / elapsed4, 2
@@ -261,16 +249,14 @@ def main():
 
     out = {
         "metric": f"PMMH aggregate iters/s (SIR, {n_particles} particles, "
-        f"T=15, {n_chains} chains/chip, resample_every={resample_every})",
+        f"T=15, {n_chains} chains/card, resample_every={resample_every})",
         "value": round(iters_per_s, 2),
         "unit": "iters/s",
-        "vs_baseline": round(iters_per_s / per_chip_target, 3),
-        # PRIMARY ESS/s = the productized efficient-frontier configuration
-        # (the `production` CLI preset); baseline_* keeps the 4096-particle
-        # baseline-shape ESS/s for cross-round continuity.  null when the
-        # eff section is skipped — silently substituting the baseline
-        # shape's number under the same key would make a ~130x config
-        # swap look like a regression
+        "device": device,
+        # PRIMARY ESS/s = the `production` CLI preset's configuration;
+        # baseline_* keeps the 4096-particle baseline-shape ESS/s.  null
+        # when the eff section is skipped, rather than the baseline shape's
+        # number under the same key
         "ess_per_s": eff.get("eff_ess_per_s"),
         "ess_rank_per_s": eff.get("eff_ess_rank_per_s"),
         "baseline_ess_per_s": round(ess_per_s, 2),

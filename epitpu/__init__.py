@@ -1,4 +1,5 @@
-"""epitpu — TPU-native Bayesian inference for stochastic epidemic models.
+"""epitpu — accelerator-native Bayesian inference for stochastic epidemic
+models.
 
 A ground-up JAX/XLA redesign with the capabilities of
 GeorgeEfstathiadis/Stochastic-Epidemic-Modelling: forward simulation
@@ -14,17 +15,17 @@ __version__ = "0.1.0"
 def enable_compilation_cache():
     """Point JAX at a persistent on-disk compilation cache.
 
-    This container has no cache configured, so EVERY process recompiles the
-    full PMMH program (~minutes on the 2-vCPU host, per bench/test/CLI
-    invocation).  The cache makes repeat invocations of bench.py, the CLI
-    runner, and the test suite start in seconds.
+    Without one, every process recompiles the full PMMH program, which
+    takes minutes on a small host.  When ``JAX_COMPILATION_CACHE_DIR`` (or
+    the ``jax_compilation_cache_dir`` config) is set, that directory is
+    used and nothing else is set here; otherwise the cache is the fixed,
+    git-ignored ``<repo>/.jax_cache``.  The path is part of the cache key,
+    so it must not move between runs.
 
     Called explicitly by epitpu's own entry points (the CLI runner, bench
     scripts, tests) — NOT at import time, so embedders sharing a process
     with other JAX users see no global-config side effect from merely
-    importing the package (round-3 advisor finding).  Opt out with
-    EPITPU_NO_COMPILATION_CACHE=1; an explicit jax_compilation_cache_dir
-    (config or JAX_COMPILATION_CACHE_DIR env) wins.
+    importing the package.  Opt out with EPITPU_NO_COMPILATION_CACHE=1.
     """
     import os
 

@@ -1,6 +1,6 @@
 """Interactive SIR simulation explorer.
 
-TPU-native counterpart of the reference's Streamlit page (reference
+Device counterpart of the reference's Streamlit page (reference
 gillespie_app.py:1-75): pick (beta, gamma, S0, I0, t), overlay a batch of
 stochastic trajectories on the deterministic ODE solution.  Two front ends
 share one compute path:
@@ -26,39 +26,21 @@ import numpy as np
 def simulate_overlay(beta, gamma, s0, i0, t_end, n_traj=30, seed=0,
                      steps_per_unit=20):
     """Returns (grid_times [t+1], trajectories [t+1, n_traj, 3],
-    ode_times [200], ode_solution [200, 3]).
-
-    On TPU the trajectory batch runs as ONE fused Pallas kernel launch
-    (epitpu.ops.pallas_simulate, one trajectory per VPU lane, padded to 128);
-    elsewhere it is one vectorized XLA simulation."""
+    ode_times [200], ode_solution [200, 3]).  The trajectory batch is one
+    vectorized simulation."""
     import jax
     import jax.numpy as jnp
 
     from .models import sir_model
     from .ode import integrate, sir_rhs
-    from .ops import pallas_simulate, pallas_simulate_supported
     from .sim import simulate
 
-    model = sir_model()
     theta = jnp.asarray([beta, gamma], jnp.float32)
-    n_pad = -(-n_traj // 128) * 128
-    if pallas_simulate_supported(model, n_pad):
-        x0 = jnp.broadcast_to(
-            jnp.asarray([s0, i0, 0.0], jnp.float32), (n_pad, 3)
-        )
-        traj = pallas_simulate(
-            model, jnp.int32(seed), x0, jnp.broadcast_to(theta, (n_pad, 2)),
-            int(t_end), steps_per_unit,
-        )  # [n_pad, t+1, 3]
-        traj = jnp.transpose(traj[:n_traj], (1, 0, 2))
-    else:
-        x0 = jnp.broadcast_to(
-            jnp.asarray([s0, i0, 0.0], jnp.float32), (n_traj, 3)
-        )
-        traj = simulate(
-            model, jax.random.PRNGKey(seed), x0, theta, int(t_end),
-            steps_per_unit,
-        )
+    x0 = jnp.broadcast_to(jnp.asarray([s0, i0, 0.0], jnp.float32), (n_traj, 3))
+    traj = simulate(
+        sir_model(), jax.random.PRNGKey(seed), x0, theta, int(t_end),
+        steps_per_unit,
+    )
     t_ode = np.linspace(0.0, float(t_end), 200)
     sol = integrate(sir_rhs, np.asarray([s0, i0, 0.0]), theta, t_ode)
     return (

@@ -51,18 +51,18 @@ class MCMCConfig:
     # static resampling schedule: resample on every k-th observation step
     # (weights carried between).  Unlike the ESS trigger this skips the
     # resampling COMPUTE on off-steps (real lax.cond on the un-batched step
-    # index), worth ~25%% throughput at k=2 on TPU (PROFILE_insitu.json:
-    # resampling is ~49%% of the PMMH iteration).  1 = resample every step.
+    # index).  1 = resample every step.
     resample_every: int = 1
     # Robbins-Monro self-tuning of the proposal scale toward this realized
     # acceptance rate (diminishing adaptation; replaces the reference's
-    # per-script hand-tuned h).  ESS_STUDY.json put the ESS/s optimum at
-    # acceptance ~0.25-0.40 for the 4096-particle flagship; 0.35 is a good
-    # target there.  None = fixed scale (reference behavior).
+    # per-script hand-tuned h).  A sweep on an earlier accelerator put the
+    # ESS/s optimum at acceptance ~0.25-0.40 for the 4096-particle
+    # flagship; 0.35 is a good target there.  None = fixed scale
+    # (reference behavior).
     target_acceptance: Optional[float] = None
-    # tau-leap binomial sampler: "fast" (threefry), "fast_rbg" (hardware RNG
-    # bits — same law, ~1.3x faster propagation on TPU, see PROFILE.json),
-    # or "exact" (jax.random.binomial, validation runs)
+    # tau-leap binomial sampler: "fast" (threefry), "fast_rbg" (XLA's
+    # RngBitGenerator bits — same law; its speed against threefry is not
+    # measured on the GPU), or "exact" (jax.random.binomial, validation)
     sampler: str = "fast"
     # not None: SELF-SIZE the particle count before the run — double from
     # 16 until the PF log-likelihood sd at theta0 drops under this target
@@ -73,8 +73,8 @@ class MCMCConfig:
     # pool the adaptive-proposal Welford statistics across ALL parallel
     # chains via collectives each iteration (epitpu.mcmc.adaptive.Welford
     # .pooled) — many cheap chains then share one well-estimated covariance.
-    # This is half of the efficient-frontier production configuration
-    # (BENCH eff_* section / ESS_STUDY.json); no reference counterpart.
+    # This is half of the `production` preset's configuration (bench.py
+    # eff_* section); no reference counterpart.
     pooled_adaptation: bool = False
     # False: theta-only fast path — the filter records no particle history,
     # no ancestral path is sampled, and no [T, C] trajectory is stacked per

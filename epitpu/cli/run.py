@@ -50,26 +50,25 @@ def generate_dataset(cfg: ExperimentConfig):
     """ODE ground truth + observation thinning, like every reference driver
     (e.g. tests/test_pmcmc_noisy.py:20-29).  Returns (y, latent)."""
     from ..ode import (
-        seir_simulate_discrete,
-        sir_simulate_discrete,
-        sir_subgroups_simulate_discrete,
+        make_sir_subgroups_rhs,
+        seir_rhs,
+        sir_rhs,
+        solve_on_integer_grid,
     )
 
     d = cfg.data
     t = np.linspace(0, d.t_max, d.grid_points)
-    if cfg.model == "sir":
-        df = sir_simulate_discrete(tuple(d.y0), t, *d.theta_true)
-        latent = df[["susceptible", "infected", "removed"]].to_numpy()
-    elif cfg.model == "seir":
-        df = seir_simulate_discrete(tuple(d.y0), t, *d.theta_true)
-        latent = df[["susceptible", "exposed", "infected", "removed"]].to_numpy()
+    if cfg.model in ("sir", "seir"):
+        rhs = sir_rhs if cfg.model == "sir" else seir_rhs
+        _, latent = solve_on_integer_grid(rhs, tuple(d.y0), d.theta_true, t)
+        latent_obs = latent
     else:
         k = cfg.subgroups
         y0 = np.asarray(d.y0, dtype=float).reshape(k, 3)
-        beta = np.asarray(d.theta_true[: k * k], dtype=float).reshape(k, k)
-        gamma = float(d.theta_true[k * k])
-        df = sir_subgroups_simulate_discrete(y0, t, beta, gamma)
-        latent = df.drop(columns=["time"]).to_numpy()
+        theta = np.asarray(d.theta_true, dtype=np.float32)
+        _, latent = solve_on_integer_grid(
+            make_sir_subgroups_rhs(k), y0.reshape(-1), theta, t
+        )
         if cfg.model == "sir_subgroups2":
             # aggregate observation over groups (reference pmcmc.py:172-175)
             latent_obs = sum(
@@ -77,8 +76,6 @@ def generate_dataset(cfg: ExperimentConfig):
             )
         else:
             latent_obs = latent
-    if cfg.model in ("sir", "seir"):
-        latent_obs = latent
 
     rng = np.random.default_rng(d.seed)
     if d.observation == "binomial":
@@ -708,25 +705,16 @@ PRESETS = {
     ),
     # the efficient-frontier configuration, productized: 2048 chains x 16
     # particles with pooled adaptation (h=0.6 on the pooled covariance),
-    # resample_every=4, hardware-RNG tau-leap, theta-only fast path.  The
+    # resample_every=4, rbg tau-leap sampler, theta-only fast path.  The
     # pseudo-marginal sampler is exact at ANY particle count (unbiased
-    # logZ), so small N costs only mixing — and the round-5 JOINT
-    # (chains x particles) sweep (ESS_STUDY.json frontier) measured
-    # 34,657 +/- 1,103 ESS/s and ~537k aggregate PMMH iters/s here on one
-    # chip (sd(logZ)=0.71, acceptance 0.26) vs ~90 ESS/s at the 32x4096
-    # baseline shape — ~380x more posterior per second on the same chip.
-    # This is the highest STABLE cell: N=8 (sd(logZ)~1.6) and chains >=
-    # 3072 go seed-unstable via outlier-init chains.  No target-acceptance
-    # controller here: at production chain counts it shrinks steps and a
-    # rare outlier init then can't walk home within the run, collapsing
-    # min-component ESS (chain_scaling_at_eff note) — the fixed pooled
-    # h=0.6 is the long-run-measured optimum and robust across seeds.
-    # At the preset's own 2,000-iteration length the numbers hold:
-    # 29-30k ESS/s over 2 seeds with rank-normalized ESS matching classic
-    # (estimator agreement at long windows is itself a convergence health
-    # signal), acceptance maturing to 0.36.  This is the preset production
-    # inference should use; REPRO.md's equivalence table shows it
-    # reproduces the faithful reference posteriors level-for-level.
+    # logZ), so small N costs only mixing.  The shape was the highest
+    # stable cell of a joint chains x particles ESS/s sweep on an earlier
+    # accelerator (N=8 and chains >= 3072 went seed-unstable via
+    # outlier-init chains); it has not been re-swept on the GPU.  No
+    # target-acceptance controller here: at production chain counts it
+    # shrinks steps and a rare outlier init then can't walk home within
+    # the run, collapsing min-component ESS — the fixed pooled h=0.6 was
+    # the long-run optimum and robust across seeds.
     "production": lambda: ExperimentConfig(
         name="production",
         data=DataConfig(observation="binomial", obs_param=0.1),
@@ -736,8 +724,8 @@ PRESETS = {
             # flagship data this stops at 16 (sd=0.71) — identical to the
             # pinned frontier config — but a user pointing the preset at
             # SHARPER data automatically gets the larger N their
-            # likelihood needs (measured: the noise=0.05 level picks 128,
-            # where pinned 16 mixes at acceptance 0.05)
+            # likelihood needs (the noise=0.05 level picks 128, where
+            # pinned 16 mixes at acceptance 0.05)
             auto_particles=1.0,
             adaptive=True, adapt_start=16, pooled_adaptation=True,
             resample_every=4, sampler="fast_rbg",
@@ -846,8 +834,8 @@ def main(argv=None):
     ap.add_argument(
         "--target-acceptance", type=float, default=None, metavar="A",
         help="Robbins-Monro self-tuning of the proposal scale toward this "
-        "realized acceptance rate (ESS_STUDY.json: ~0.35 is the ESS/s "
-        "optimum at 4096 particles); replaces per-experiment h tuning",
+        "realized acceptance rate (~0.35 was the ESS/s optimum at 4096 "
+        "particles); replaces per-experiment h tuning",
     )
     ap.add_argument(
         "--plot-particles", action="store_true",

@@ -7,7 +7,7 @@ boolean "high-likelihood" map; (b) re-screen a RECORDED chain offline by
 re-running the Metropolis accept/reject against the stored likelihoods
 without re-running any filters.
 
-TPU-native redesign: the grid is evaluated as ONE vmapped batch of filters
+Device-native redesign: the grid is evaluated as ONE vmapped batch of filters
 in a single compiled program (the reference loops a Python PF per grid
 point), and the re-screen runs in log space as a ``lax.scan`` — replacing
 the reference's ``10**constant`` string-parsed underflow rescale

@@ -3,9 +3,10 @@
 The reference has no distributed backend at all — its only parallelism is a
 single-host joblib process pool over particles (reference pmcmc.py:8,
 201-220) and chains run as separate script invocations combined post-hoc
-(reference tests/test_pmcmc_noisy.py:254-267).  The TPU-native equivalents:
+(reference tests/test_pmcmc_noisy.py:254-267).  The device-native
+equivalents:
 
-  * particles: vectorized within a chip (the tau-leap kernel is batched) and
+  * particles: vectorized within a device (the tau-leap is batched) and
     optionally sharded over a ``particle`` mesh axis with psum/all_gather
     collectives inside the filter (epitpu.smc.filter ``axis_name``) — both
     standalone (``sharded_particle_filter``) and inside the PMMH step
@@ -16,8 +17,9 @@ single-host joblib process pool over particles (reference pmcmc.py:8,
     capability the reference lacks;
   * multi-host: the same mesh spans hosts once
     ``epitpu.dist.multihost.initialize_multihost()`` has joined the runtime
-    (CLI: ``--multihost``); chain shards ride DCN, particle shards stay
-    intra-slice.
+    (CLI: ``--multihost``); keep particle shards within a host, where NVLink
+    carries their per-step collectives, and spread chain shards across
+    hosts.
 """
 from __future__ import annotations
 
@@ -144,7 +146,7 @@ def sharded_pmmh(
     axis (``epitpu.smc.filter`` ``axis_name``); the ancestral path sampler
     consumes the all-gathered history (``epitpu.mcmc.pmmh
     ._filter_ll_and_path``).  This is what makes a (chain x particle) mesh
-    real for PMMH — the TPU-native scale-out of the reference's per-particle
+    real for PMMH — the device-native scale-out of the reference's per-particle
     joblib pool (reference pmcmc.py:200-220) along BOTH axes at once.
 
     Result arrays have a leading global chains axis (sharded; replicated

@@ -1,19 +1,21 @@
-"""Multi-host initialization for pod-scale runs.
+"""Multi-host initialization for runs that span several GPU hosts.
 
 The reference is single-host only (joblib process pool,
 reference pmcmc.py:8, 201-220).  Scaling the chain axis across hosts needs
 exactly one extra step: ``jax.distributed.initialize`` BEFORE any other JAX
 call, after which ``jax.devices()`` spans every host and the usual
 ``epitpu.dist.make_mesh`` / ``sharded_pmmh`` path shards chains over the
-global device set (chain shards ride DCN between hosts, particle shards stay
-on ICI within a slice).
+global device set.  XLA's collectives go over NCCL: NVLink between the GPUs
+of one host, the network between hosts, so keep particle shards (which
+communicate every filter step) within a host and spread chain shards
+(which communicate only for pooled adaptation) across hosts.
 
 Launch recipe (one process per host):
 
     EPITPU_COORDINATOR=host0:8476 EPITPU_NUM_PROCESSES=4 EPITPU_PROCESS_ID=$i \\
         python -m epitpu.cli.run --preset ... --multihost
 
-On Cloud TPU pods the three values are auto-detected and
+Under SLURM or Open MPI the three values are auto-detected and
 ``initialize_multihost()`` needs no arguments at all.  Artifacts/checkpoints
 are written by process 0 only (see ``is_primary_host``).
 """
@@ -67,16 +69,10 @@ def initialize_multihost(
 
 
 def _cloud_autodetectable() -> bool:
-    """True when jax.distributed.initialize can self-configure (TPU pod
-    metadata / SLURM / Open MPI environments)."""
+    """True when jax.distributed.initialize can self-configure (SLURM /
+    Open MPI environments)."""
     return any(
-        k in os.environ
-        for k in (
-            "TPU_WORKER_HOSTNAMES",  # Cloud TPU pod
-            "MEGASCALE_COORDINATOR_ADDRESS",
-            "SLURM_JOB_ID",
-            "OMPI_MCA_orte_hnp_uri",
-        )
+        k in os.environ for k in ("SLURM_JOB_ID", "OMPI_MCA_orte_hnp_uri")
     )
 
 

@@ -13,23 +13,10 @@ import jax
 import jax.numpy as jnp
 
 from ..models.base import CompartmentModel
-from ..ops import pallas_simulate, pallas_simulate_supported
 from ..sim.tauleap import simulate
-
-_LANES = 128
 
 
 @partial(jax.jit, static_argnums=(0, 4, 5))
-def _forecast_xla(model, key, thetas, last_states, horizon, steps_per_unit):
-    n = thetas.shape[0]
-    keys = jax.random.split(key, n)
-
-    def one(k, th, x0):
-        return simulate(model, k, x0[None, :], th, horizon, steps_per_unit)[:, 0, :]
-
-    return jax.vmap(one)(keys, thetas, last_states)
-
-
 def posterior_forecast(
     model: CompartmentModel,
     key,
@@ -37,38 +24,17 @@ def posterior_forecast(
     last_states,
     horizon: int,
     steps_per_unit: int = 20,
-    backend: str = "auto",
 ):
     """thetas: [n, d_model] posterior draws (model parameters only);
     last_states: [n, C] matching filtered states; returns [n, horizon+1, C]
     including the starting state (the reference concatenates filtered past +
-    forecast, pred_tmps.py:75-78).
+    forecast, pred_tmps.py:75-78).  One vmapped substep-scan simulation."""
+    keys = jax.random.split(key, thetas.shape[0])
 
-    On TPU ("auto"), the whole posterior batch advances in ONE fused Pallas
-    kernel launch, one draw per VPU lane (epitpu.ops.pallas_simulate, padded
-    to a 128-lane multiple); otherwise a vmapped XLA substep scan."""
-    n = int(thetas.shape[0])
-    n_pad = -(-n // _LANES) * _LANES
-    if backend == "auto":
-        backend = (
-            "pallas"
-            if pallas_simulate_supported(model, n_pad)
-            else "xla"
-        )
-    if backend == "pallas":
-        pad = n_pad - n
-        th = jnp.concatenate(
-            [jnp.asarray(thetas, jnp.float32)] + ([thetas[-1:].repeat(pad, 0)] if pad else []),
-        )
-        x0 = jnp.concatenate(
-            [jnp.asarray(last_states, jnp.float32)]
-            + ([last_states[-1:].repeat(pad, 0)] if pad else []),
-        )
-        seed = jax.random.randint(key, (), 0, jnp.iinfo(jnp.int32).max)
-        out = pallas_simulate(model, seed, x0, th, horizon, steps_per_unit)
-        return out[:n]
-    return _forecast_xla(model, key, thetas, last_states, horizon,
-                         steps_per_unit)
+    def one(k, th, x0):
+        return simulate(model, k, x0[None, :], th, horizon, steps_per_unit)[:, 0, :]
+
+    return jax.vmap(one)(keys, thetas, last_states)
 
 
 def forecast_from_result(
@@ -79,7 +45,6 @@ def forecast_from_result(
     infer_obs_param=False,
     thin=1,
     steps_per_unit=20,
-    backend="auto",
 ):
     """Forecast from a PMMHResult: uses each (thinned) iteration's stored
     trajectory end-state and theta.  Returns [n_draws, horizon+1, C]."""
@@ -88,6 +53,5 @@ def forecast_from_result(
         thetas = thetas[:, :-1]
     last_states = jnp.asarray(result.sampled_trajs)[::thin, -1, :]
     return posterior_forecast(
-        model, key, thetas, last_states, horizon, steps_per_unit,
-        backend=backend,
+        model, key, thetas, last_states, horizon, steps_per_unit
     )

@@ -70,11 +70,6 @@ class CompartmentModel:
     def stoich_jnp(self, dtype=jnp.float32):
         return jnp.asarray(self.stoich, dtype=dtype)
 
-    def source_onehot(self, dtype=jnp.float32):
-        """[R, C] one-hot of each reaction's source compartment."""
-        eye = np.eye(len(self.compartments), dtype=np.float32)
-        return jnp.asarray(eye[self.source], dtype=dtype)
-
     @property
     def sources_unique(self) -> bool:
         """True when no two reactions share a source compartment — the

@@ -51,12 +51,17 @@ def _make_rates(k, transpose_beta):
         s = xs[..., 0]  # [..., K]
         i = xs[..., 1]
         n_total = jnp.sum(x, axis=-1)[..., None]
+        # HIGHEST: a default-precision float32 dot may run in TF32 on a GPU
         if transpose_beta:
             # force on group g: sum_pop beta[pop, g] * i_pop  (reference SSA)
-            force = jnp.einsum("...p,...pg->...g", i, beta)
+            force = jnp.einsum(
+                "...p,...pg->...g", i, beta, precision=jax.lax.Precision.HIGHEST
+            )
         else:
             # textbook: sum_j beta[g, j] * i_j
-            force = jnp.einsum("...gj,...j->...g", beta, i)
+            force = jnp.einsum(
+                "...gj,...j->...g", beta, i, precision=jax.lax.Precision.HIGHEST
+            )
         a_infect = s * force / n_total  # [..., K]
         a_recover = gamma[..., None] * i  # [..., K]
         return jnp.concatenate([a_infect, a_recover], axis=-1)

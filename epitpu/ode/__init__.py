@@ -1,6 +1,7 @@
 from .solve import (
     integrate,
     discretize_to_integer_grid,
+    solve_on_integer_grid,
     sir_rhs,
     seir_rhs,
     make_sir_subgroups_rhs,
@@ -12,6 +13,7 @@ from .solve import (
 __all__ = [
     "integrate",
     "discretize_to_integer_grid",
+    "solve_on_integer_grid",
     "sir_rhs",
     "seir_rhs",
     "make_sir_subgroups_rhs",

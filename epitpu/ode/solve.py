@@ -48,7 +48,9 @@ def make_sir_subgroups_rhs(k):
         ys = y.reshape(k, 3)
         s, i = ys[:, 0], ys[:, 1]
         n = jnp.sum(y)
-        force = beta @ i  # untransposed, as reference pmcmc.py:46-47
+        # untransposed, as reference pmcmc.py:46-47; HIGHEST keeps the dot
+        # out of TF32 on a GPU
+        force = jnp.matmul(beta, i, precision=jax.lax.Precision.HIGHEST)
         ds = -s * force / n
         di = s * force / n - gamma * i
         dr = gamma * i
@@ -99,6 +101,14 @@ def discretize_to_integer_grid(t_grid, solution):
     return np.arange(t_max + 1), np.stack(rows)
 
 
+def solve_on_integer_grid(rhs, y0, theta, t, substeps=10):
+    """``integrate`` then ``discretize_to_integer_grid``: numpy
+    ``(days [T], states [T, C])``, the arrays behind the DataFrame
+    wrappers below, with no pandas import."""
+    sol = integrate(rhs, y0, jnp.asarray(theta), t, substeps)
+    return discretize_to_integer_grid(t, sol)
+
+
 def _as_frame(days, states, columns):
     import pandas as pd
 
@@ -110,15 +120,15 @@ def _as_frame(days, states, columns):
 
 def sir_simulate_discrete(y0, t, beta, gamma, substeps=10):
     """Drop-in equivalent of reference pmcmc.py:54-73 (daily SIR DataFrame)."""
-    sol = integrate(sir_rhs, y0, jnp.asarray([beta, gamma]), t, substeps)
-    days, states = discretize_to_integer_grid(t, sol)
+    days, states = solve_on_integer_grid(sir_rhs, y0, [beta, gamma], t, substeps)
     return _as_frame(days, states, ["susceptible", "infected", "removed"])
 
 
 def seir_simulate_discrete(y0, t, beta, alpha, gamma, substeps=10):
     """Drop-in equivalent of reference pmcmc.py:76-96."""
-    sol = integrate(seir_rhs, y0, jnp.asarray([beta, alpha, gamma]), t, substeps)
-    days, states = discretize_to_integer_grid(t, sol)
+    days, states = solve_on_integer_grid(
+        seir_rhs, y0, [beta, alpha, gamma], t, substeps
+    )
     return _as_frame(days, states, ["susceptible", "exposed", "infected", "removed"])
 
 
@@ -130,9 +140,9 @@ def sir_subgroups_simulate_discrete(y0, t, beta, gamma, substeps=10):
     theta = jnp.concatenate(
         [jnp.asarray(beta, jnp.float32).reshape(-1), jnp.asarray([gamma], jnp.float32)]
     )
-    rhs = make_sir_subgroups_rhs(k)
-    sol = integrate(rhs, y0.reshape(-1), theta, t, substeps)
-    days, states = discretize_to_integer_grid(t, sol)
+    days, states = solve_on_integer_grid(
+        make_sir_subgroups_rhs(k), y0.reshape(-1), theta, t, substeps
+    )
     cols = [
         f"{name}{g}" for g in range(k) for name in ("susceptible", "infected", "removed")
     ]

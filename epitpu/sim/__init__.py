@@ -1,4 +1,4 @@
-from .tauleap import advance, simulate, substep
+from .tauleap import advance, draw_binomial, event_counts, simulate, substep
 from .samplers import exact_binomial, fast_binomial, get_binomial_sampler
 from .exact import (
     exact_advance,
@@ -10,6 +10,8 @@ from .exact import (
 
 __all__ = [
     "advance",
+    "draw_binomial",
+    "event_counts",
     "simulate",
     "substep",
     "exact_advance",

@@ -1,24 +1,25 @@
 """Fast batched binomial sampling for the tau-leap hot loop.
 
-``jax.random.binomial`` costs ~1.5 ms per substep at production shapes on
-TPU (its rejection sampler runs a data-dependent while_loop and computes
-both of its internal branches), which would dominate the whole PMMH
-iteration.  The tau-leap kernel only ever needs Binomial(n, p) where p is a
-small per-step hazard, so a two-regime sampler covers it at ~30x less cost:
+``jax.random.binomial`` runs a rejection sampler with a data-dependent
+while_loop and computes both of its internal branches; on an earlier
+accelerator it cost ~30x this sampler at production shapes and would have
+dominated the PMMH iteration (not yet measured on the GPU).  The tau-leap
+kernel only ever needs Binomial(n, p) where p is a small per-step hazard,
+so a two-regime sampler covers it:
 
   * mean < SMALL_MEAN_MAX: EXACT inverse-CDF inversion.  The pmf is built by
     the stable recurrence pmf_{k+1} = pmf_k * (n-k)/(k+1) * p/(1-p), unrolled
     to K terms, and a single uniform is inverted through the CDF.  The only
     approximation is truncation at K: P(X >= 20 | mean <= 8) < 1e-4, i.e.
     ~1 in 10^4 draws clamps a tail count by a few units — far below the
-    tau-leap dt bias.  (K was 24 in round 2; the unrolled CDF loop is the
-    hottest arithmetic in the propagation phase, and dropping the 4
-    negligible tail terms measured +2% whole-bench throughput.)
+    tau-leap dt bias.  (The unrolled CDF loop is the hottest arithmetic in
+    the propagation phase; K=20 rather than 24 drops 4 negligible tail
+    terms.)
   * mean >= SMALL_MEAN_MAX: normal approximation with a second-order
     Cornish-Fisher skewness correction, rounded and clamped to [0, n]; at
     mean >= 8 the CF-corrected quantile error is below the tau-leap dt bias.
 
-Both branches cost one RNG draw + O(K) VPU flops, fully fused by XLA.
+Both branches cost one RNG draw + O(K) elementwise flops, fused by XLA.
 ``sampler="exact"`` falls back to jax.random.binomial for gold-standard
 validation runs (and is what the test-suite oracle uses to check this one).
 """
@@ -65,8 +66,7 @@ def _binomial_normal_cf(z, n, p):
 
 def fast_binomial(key, n, p):
     """Drop-in batched Binomial(n, p) sampler (float counts in, float counts
-    out), accurate to well below tau-leap discretization error and ~30x
-    faster than jax.random.binomial on TPU."""
+    out), accurate to well below tau-leap discretization error."""
     k_u, k_z = jax.random.split(key)
     shape = jnp.broadcast_shapes(jnp.shape(n), jnp.shape(p))
     n = jnp.broadcast_to(n, shape).astype(jnp.float32)

@@ -1,6 +1,6 @@
 """Bootstrap particle filter as a single fused ``lax.scan`` over time.
 
-TPU-native redesign of the reference filter (reference pmcmc.py:123-233),
+Device-native redesign of the reference filter (reference pmcmc.py:123-233),
 which runs a sequential Python loop over observation times and fans each
 particle's one-unit Gillespie propagation out to a joblib process pool
 (reference pmcmc.py:200-220).  Here the whole filter — weighting,
@@ -111,8 +111,9 @@ def particle_filter(
     weight-carry estimator).  Because the schedule is a function of the
     step index — un-batched under the chains vmap — the skip is a real
     ``lax.cond``: skipped steps do NOT execute the O(N^2) compare-reduce
-    that the in-situ trace (PROFILE_insitu.json) shows is ~49% of the PMMH
-    iteration, which the data-dependent ESS trigger cannot avoid under
+    (about half of the always-resample PMMH iteration in a device trace on
+    an earlier accelerator; not yet measured on the GPU), which the
+    data-dependent ESS trigger cannot avoid under
     vmap (batched predicate -> select executes both branches).  Composes
     with ``resample_threshold``: on scheduled steps the ESS gate still
     applies.
@@ -122,7 +123,7 @@ def particle_filter(
     uses a psum-logsumexp over the axis, and resampling all-gathers the (tiny)
     weight and state arrays so every shard computes the identical global
     ancestor assignment and keeps its own slice.  At epidemic-model sizes
-    (N*C a few tens of KB) the all-gather rides ICI for free; ancestry/hidden
+    (N*C a few tens of KB) the all-gather is cheap; ancestry/hidden
     are recorded per-shard in *global* particle indices so a path sampled
     from the all-gathered history is genealogy-consistent.
     """

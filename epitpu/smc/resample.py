@@ -8,18 +8,15 @@ are NaN/degenerate (reference pmcmc.py:185-193).  Here:
   * ancestor indices come from a **fused compare-reduce** instead of
     searchsorted:  ``anc[j] = sum_k 1[cdf_k < p_j]``.  XLA fuses the
     broadcast-compare into the reduction, so the N x N comparison never
-    materializes; it runs as pure VPU streaming.  This matters enormously:
-    a vmapped ``jnp.searchsorted`` + ``jnp.take`` inside the filter's scan
-    measured ~19 ms per step at [32 chains x 4096 particles] on TPU v5e,
-    while the compare-reduce is ~40 us — the difference between 117 and
-    >1000 PMMH iters/s.  The O(N^2) compares lose to the O(N)
-    counts+scatter inversion only past a measured crossover
-    (SCALING.json resampler_crossover, end-to-end through the filter at
-    32 chains on v5e: compare-reduce wins at N<=8192, scatter wins 1.22x
-    at N=16384 and 1.97x at N=32768), so ``systematic`` AUTO-DISPATCHES
-    to the scatter path at ``n >= SCATTER_THRESHOLD_N`` — same ancestor
-    assignment either way (see ``systematic_resample_scatter``), purely a
-    kernel choice;
+    materializes; it runs as elementwise streaming.  On an earlier
+    accelerator a vmapped ``jnp.searchsorted`` + ``jnp.take`` inside the
+    filter's scan was two orders of magnitude slower than this form.  The
+    O(N^2) compares lose to the O(N) counts+scatter inversion past a
+    crossover N, so ``systematic`` AUTO-DISPATCHES to the scatter path at
+    ``n >= SCATTER_THRESHOLD_N`` — same ancestor assignment either way
+    (see ``systematic_resample_scatter``), purely a kernel choice.  None
+    of these speeds has been measured on the GPU yet
+    (``scaling_bench.py --resampler`` measures the crossover);
   * "systematic" (default) is the lower-variance stratified scheme: a single
     uniform offset + N equally spaced points through the CDF;
   * "multinomial" reproduces the reference's scheme (N iid categorical
@@ -66,16 +63,12 @@ def _compare_reduce_ancestors(cdf, points):
     """anc[..., j] = #{k : cdf[..., k] < points[..., j]} via a broadcast
     compare fused into a sum — no searchsorted, no gather.
 
-    Round-3 note: an exact two-level blocked decomposition (compare block
-    maxima, gather each point's straddling block, compare within — 32.8x
-    fewer compares at N=4096) was implemented and benchmarked END-TO-END
-    SLOWER (1136 vs 1337 PMMH iters/s at 16x4096): the per-point row
-    gather costs more than the N^2 compare it saves, because XLA streams
-    the broadcast-compare-reduce at near peak VPU rate while TPU gathers
-    serialize.  The flat form stays.  The resampling COST lever that does
-    work is skipping steps entirely (``resample_every`` /
-    ``resample_threshold`` in epitpu.smc.filter: +33% iters/s at k=2 with
-    unchanged ESS)."""
+    An exact two-level blocked decomposition (compare block maxima, gather
+    each point's straddling block, compare within — 32.8x fewer compares
+    at N=4096) benchmarked end-to-end slower on an earlier accelerator,
+    where gathers serialized; it has not been tried on the GPU.  The
+    resampling cost lever that needs no kernel is skipping steps
+    (``resample_every`` / ``resample_threshold`` in epitpu.smc.filter)."""
     n = cdf.shape[-1]
     anc = jnp.sum(
         (cdf[..., None, :] < points[..., :, None]).astype(jnp.int32), axis=-1
@@ -83,11 +76,11 @@ def _compare_reduce_ancestors(cdf, points):
     return jnp.minimum(anc, n - 1)
 
 
-# Smallest particle count at which the O(N) counts+scatter inversion beats
-# the O(N^2) compare-reduce end-to-end on TPU v5e (SCALING.json
-# resampler_crossover: scatter 1.22x at 16384, 1.97x at 32768; compare-
-# reduce 1.6x/1.1x faster at 4096/8192).  ``systematic_resample`` switches
-# kernels here — the ancestor assignment is identical either way.
+# Smallest particle count at which the O(N) counts+scatter inversion beat
+# the O(N^2) compare-reduce end-to-end on an earlier accelerator; not yet
+# measured on the GPU (``scaling_bench.py --resampler``).
+# ``systematic_resample`` switches kernels here — the ancestor assignment
+# is identical either way.
 SCATTER_THRESHOLD_N = 16384
 
 
@@ -141,9 +134,8 @@ def _offsets_to_ancestors(offsets, n):
 def systematic_resample_scatter(key, logw):
     """Systematic resampling in O(N) — no N x N broadcast.
 
-    The compare-reduce above streams N^2 comparisons through the VPU; at
-    N=4096 that is 16.8M compares per chain per filter step, the dominant
-    resampling cost found in round 2 (PROFILE.json).  Systematic points
+    The compare-reduce above streams N^2 comparisons; at N=4096 that is
+    16.8M compares per chain per filter step.  Systematic points
     ``p_j = (j + u) * total / N`` are already sorted, so the ancestor
     assignment is fully determined by the counts
     ``q(v) = #{j : p_j < v} = clip(ceil(v * N / total - u), 0, N)``
@@ -153,11 +145,6 @@ def systematic_resample_scatter(key, logw):
     ``systematic_resample`` (boundary ties ``p_j == cdf_k`` resolve to the
     other side — a measure-zero event).  Batch dims vmap-expand.
 
-    Measured on TPU v5e END-TO-END at [16 chains x 4096 particles]: 895
-    PMMH iters/s vs the flat compare-reduce's 1337 — the scatter-add
-    serializes on TPU and loses despite the asymptotic advantage at PMMH
-    particle counts.  The round-4 crossover sweep (SCALING.json
-    resampler_crossover) found the scatter kernel wins from N >= 16384, so
     ``systematic_resample`` AUTO-DISPATCHES here at
     ``n >= SCATTER_THRESHOLD_N``; below that it remains the opt-in
     ``resampling="systematic_scatter"``."""

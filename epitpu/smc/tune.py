@@ -4,17 +4,17 @@ The PMMH posterior is exact at ANY particle count (the likelihood estimate
 is unbiased), so N trades throughput against mixing only: the standard
 tuning result (Doucet, Pitt, Deligiannidis & Kohn 2015; Sherlock et al.
 2015) puts the efficiency optimum where the log-likelihood estimator's
-standard deviation at a representative theta is ~1.0-1.7.  The round-5
-frontier sweep (ESS_STUDY.json `frontier`) measured exactly this on chip:
-ESS/s keeps rising as N falls until sd(logZ) crosses ~1 (N=16 at
-sd=0.71 is the stable peak for the flagship workload; N=8 at sd=1.6 goes
-unstable), and the low-noise Gaussian levels need larger N because their
-weights are sharper.
+standard deviation at a representative theta is ~1.0-1.7.  A chains x
+particles sweep on an earlier accelerator (not yet repeated on the GPU)
+agreed: ESS/s kept rising as N fell until sd(logZ) crossed ~1 (N=16 at
+sd=0.71 was the stable peak for the flagship workload; N=8 at sd=1.6
+went unstable), and the low-noise Gaussian levels need larger N because
+their weights are sharper.
 
 ``tune_particles`` turns the rule into a measurement: double N until the
 sampled sd(logZ) at the starting theta drops under ``target_sd``.  The
-whole probe is a handful of vmapped filters — microseconds of chip time
-next to the chain it configures.  The reference has no counterpart: its
+whole probe is a handful of vmapped filters, small next to the chain it
+configures.  The reference has no counterpart: its
 particle counts are hand-picked constants per script (reference
 tests/experiments/noise/noise_.1.py:41 ``n_particles=100``).
 """

@@ -18,7 +18,7 @@ Decision rule: the defensible default is the arm with the best mean ESS/s
 whose seed-spread does not overlap the runner-up's — otherwise keep the
 simpler config and say the difference is noise.
 
-Usage: python ess_study.py   (real TPU; ~6 min)
+Usage: python ess_study.py   (on the GPU)
        ESS_STUDY_ITERS=256 python ess_study.py   (shrunk)
 """
 from __future__ import annotations

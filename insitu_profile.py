@@ -71,20 +71,14 @@ def build_workload(n_chains, n_iters, n_particles, sampler, steps_per_unit,
     """The exact bench.py workload, returned as (jitted fn, args)."""
     import jax
     import jax.numpy as jnp
-    import numpy as np
 
     from epitpu.mcmc.pmmh import _STATIC_NAMES, particle_mcmc
     from epitpu.models import sir_model
+    from epitpu.cli.configs import ExperimentConfig
+    from epitpu.cli.run import generate_dataset
     from epitpu.observe import get_observation_model
-    from epitpu.ode import sir_simulate_discrete
 
-    t = np.linspace(0, 14, 100)
-    df = sir_simulate_discrete((4800.0, 20.0, 0.0), t, 2.0, 1.0)
-    latent = df[["susceptible", "infected", "removed"]].to_numpy()
-    rng = np.random.default_rng(42)
-    y = jnp.asarray(
-        rng.binomial(np.round(latent).astype(int), 0.1).astype(np.float32)
-    )
+    y = jnp.asarray(generate_dataset(ExperimentConfig())[0])  # flagship
     model = sir_model()
     obs = get_observation_model("binomial")
 
@@ -166,8 +160,12 @@ def parse_hlo_phases(hlo_text):
     return instr_phase
 
 
+_GPU_PLANE = re.compile(r"/device:GPU:\d+")
+
+
 def device_event_durations(trace_dir):
-    """Sum device-side event durations (us) by instruction name."""
+    """Sum device-side event durations (us) by instruction name, over the
+    GPU device planes (processes named ``/device:GPU:N``)."""
     files = glob.glob(
         os.path.join(trace_dir, "**", "*.trace.json.gz"), recursive=True
     )
@@ -181,7 +179,7 @@ def device_event_durations(trace_dir):
         ev = doc.get("traceEvents", [])
         for e in ev:
             if e.get("ph") == "M" and e.get("name") == "process_name":
-                if "TPU" in str(e.get("args", {}).get("name", "")):
+                if _GPU_PLANE.search(str(e.get("args", {}).get("name", ""))):
                     device_pids.add(e.get("pid"))
         for e in ev:
             name = str(e.get("name", ""))
@@ -196,6 +194,8 @@ def device_event_durations(trace_dir):
                 )
             ):
                 durs[name] += float(e.get("dur", 0.0))
+    if not device_pids:
+        raise RuntimeError(f"no /device:GPU:N plane in the trace {trace_dir}")
     return durs
 
 
@@ -289,8 +289,7 @@ def main():
             "trace of the production PMMH program, attributed to pipeline "
             "phases via named_scope op_name metadata in the optimized HLO "
             "(fusions weighted by their constituent-instruction scope "
-            "histogram). This replaces the isolated-phase reconstruction "
-            "in PROFILE.json as the ground truth."
+            "histogram)."
         ),
     }
     with open(args.out, "w") as f:

@@ -18,14 +18,14 @@ iters).  Per level the reference aggregates posterior MSE against the truth
 This script runs the COMPLETE study — all 14 grid levels at the full 6,000
 iterations x 3 chains x 100 particles, plus both flagships — through the
 same ``run_sweep`` / ``run_experiment`` entry points as
-``python -m epitpu.cli.run --sweep ...``, on one TPU chip, with segmented
+``python -m epitpu.cli.run --sweep ...``, on one GPU, with segmented
 checkpointing on, and writes:
 
   * ``repro.json``  — machine-readable per-level posterior summaries, PMSE,
     R-hat, ESS, acceptance, wall-clock;
   * ``REPRO.md``    — the human-readable study report.
 
-Usage:  python repro.py            (full study, TPU, ~minutes)
+Usage:  python repro.py            (full study, on the GPU)
         REPRO_SMOKE=1 python repro.py   (tiny CPU smoke of the whole flow)
 """
 from __future__ import annotations
@@ -434,7 +434,7 @@ def write_report(out):
         "# REPRO — the reference's full experiment study at production scale",
         "",
         f"Generated by `python repro.py` on `{out['device']}` "
-        f"(one TPU chip).  Machine-readable copy: `repro.json`.",
+        f"(one device).  Machine-readable copy: `repro.json`.",
         "",
         "Every grid level runs the reference's production configuration — "
         "**6,000 adaptive PMCMC iterations, 100 particles, 3 chains** "

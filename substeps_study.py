@@ -20,7 +20,7 @@ Decision rule: the production default is the smallest substep count whose
 log-lik bias vs the substeps=80 anchor is within 2 joint-MC-error units AND
 whose posterior mean shift is within MC error of the anchor's.
 
-Usage: python substeps_study.py          (real TPU, ~5 min)
+Usage: python substeps_study.py          (on the GPU)
        SUBSTEPS_FAST=1 python substeps_study.py   (shrunk smoke)
 """
 from __future__ import annotations

@@ -264,8 +264,7 @@ def test_multihost_init_is_single_host_noop(monkeypatch):
     initialize_multihost must be a safe no-op returning False."""
     from epitpu.dist import initialize_multihost, multihost_env_spec
 
-    for k in ("EPITPU_COORDINATOR", "TPU_WORKER_HOSTNAMES", "SLURM_JOB_ID",
-              "MEGASCALE_COORDINATOR_ADDRESS", "OMPI_MCA_orte_hnp_uri"):
+    for k in ("EPITPU_COORDINATOR", "SLURM_JOB_ID", "OMPI_MCA_orte_hnp_uri"):
         monkeypatch.delenv(k, raising=False)
     assert multihost_env_spec() is None
     assert initialize_multihost() is False

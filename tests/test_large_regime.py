@@ -12,8 +12,8 @@ regime costs the same as the toy one.
 
 These tests pin the two numerical-validity questions (round-4 judge missing
 #3): float32 state exactness below 2^24, and binomial log-pmf accuracy at
-n ~ 10^6 against the float64/scipy oracle.  SCALING.json's `large_regime`
-entry benches the same configuration on the TPU.
+n ~ 10^6 against the float64/scipy oracle.  ``scaling_bench.py
+--large-regime`` benches the same configuration on the GPU.
 """
 import jax
 import jax.numpy as jnp

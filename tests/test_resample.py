@@ -103,9 +103,8 @@ def test_systematic_auto_dispatches_to_scatter_at_threshold(monkeypatch):
 
 
 def test_scatter_systematic_matches_compare_reduce():
-    """The O(N) counts+scatter systematic resampler (opt-in: it benchmarked
-    slower than the compare-reduce at production N on the v5e VPU, see
-    epitpu/smc/resample.py) computes the SAME ancestor assignment as the
+    """The O(N) counts+scatter systematic resampler (opt-in below
+    SCATTER_THRESHOLD_N, see epitpu/smc/resample.py) computes the SAME ancestor assignment as the
     O(N^2) compare-reduce given the same key, away from measure-zero CDF
     boundary ties."""
     from epitpu.smc import systematic_resample_scatter

@@ -49,8 +49,8 @@ def test_tauleap_matches_exact_ssa_moments():
 
 
 def test_fast_rbg_sampler_matches_exact_moments():
-    """The hardware-RNG variant (sampler="fast_rbg", used by the TPU bench
-    fast path) must produce the same trajectory law as the threefry "fast"
+    """The rbg-key variant (sampler="fast_rbg", the production preset's
+    sampler) must produce the same trajectory law as the threefry "fast"
     sampler — compare both against the exact SSA."""
     m = sir_model()
     b = 2048
